@@ -168,26 +168,18 @@ def main():
     ap.add_argument("--dofs", type=str, default="")
     ap.add_argument("-o", "--out", type=str, default="",
                     help="also write all rows to this JSON artifact")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (accelerator) platform; by "
-                         "default the sweep forces CPU — it runs f64 "
-                         "pipelines, which TPU linalg does not support")
     args = ap.parse_args()
 
-    if not args.tpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
+    # the sweep runs f64 pipelines: CPU with x64
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
 
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
-    else:
-        import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from libdwbc_tpu import runtime
+
     # persistent compilation cache: a resumed/re-run sweep skips the jits
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".jax_cache"),
-    )
+    runtime.enable_compile_cache()
 
     urdfs = sorted(glob.glob(os.path.join(DOF_DIR, "*.urdf")))
     if args.dofs:

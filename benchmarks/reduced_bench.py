@@ -1,14 +1,15 @@
-"""Reduced-vs-full pipeline throughput on the serving shape (TPU artifact).
+"""Reduced-vs-full pipeline throughput on the serving shape, on one GPU.
 
 The reference motivates its `_R` path as "Time-Efficient Contact Consistent
 Whole-Body Control" and measures full-vs-reduced per-stage timings in
 tests/sp_test/redu_dyn_test.cpp:302-326 and the 18-45 DoF sweep in
-tests/sp_test/dof_comparison.cpp.  This harness is the TPU serving-shape
+tests/sp_test/dof_comparison.cpp.  This harness is the serving-shape
 analog: both pipelines as compiled batched warm-started chained ticks
-(the exact bench.py methodology: K on-device chained ticks, RTT floor
-subtracted), same model, same contact/task config.
+(the exact bench.py methodology: K on-device chained ticks, timed with
+block_until_ready), same model, same contact/task config.  It compiles the
+reference's URDFs, so it needs the reference tree.
 
-Writes benchmarks/reduced_bench_r{N}.json:
+Writes out/reduced_bench.json (or --out):
   per topology: {model_dof, reduced_dof, full_solves_s, reduced_solves_s,
                  speedup, tau_grav_xcheck, gaps}
 
@@ -23,24 +24,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-
-
-def _rtt(jax, jnp):
-    f = jax.jit(lambda x: x * 2.0)
-    x0 = jax.device_put(np.ones(8, np.float32))
-    float(jnp.sum(f(x0)))
-    ts = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        float(jnp.sum(f(x0)))
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def _chained(jax, jnp, tick, model, K, warm_iters):
@@ -68,22 +53,21 @@ def _chained(jax, jnp, tick, model, K, warm_iters):
     return chain
 
 
-def bench_tick(jax, jnp, tick, model, qs, qds, fs, K, warm_iters, rtt,
-               repeats=3):
+def bench_tick(jax, jnp, tick, model, qs, qds, fs, K, warm_iters, repeats=3):
     chain = _chained(jax, jnp, tick, model, K, warm_iters)
     q_d = jax.device_put(qs)
     qd_d = jax.device_put(qds)
     fs_d = tuple(jax.device_put(f) for f in fs)
     qq, diag = chain(q_d, qd_d, fs_d)
-    float(jnp.sum(qq))  # compile + warm
+    jax.block_until_ready(qq)  # compile + warm
     times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         qq, diag = chain(q_d, qd_d, fs_d)
-        float(jnp.sum(qq))
+        jax.block_until_ready(qq)
         times.append(time.perf_counter() - t0)
     dt = float(np.median(times))
-    per_tick = max(dt - rtt, 1e-9) / K
+    per_tick = dt / K
     assert np.isfinite(np.asarray(qq)).all()
     return dict(
         solves_s=qs.shape[0] / per_tick,
@@ -93,7 +77,7 @@ def bench_tick(jax, jnp, tick, model, qs, qds, fs, K, warm_iters, rtt,
     )
 
 
-def run_topology(jax, jnp, urdf, name, K, warm_iters, rtt, B=1024):
+def run_topology(jax, jnp, urdf, name, K, warm_iters, B=1024):
     from libdwbc_tpu.model.compile import compile_urdf
     from libdwbc_tpu.wbc import types as T
     from libdwbc_tpu.wbc.pipeline import CompiledTick, PipelineConfig
@@ -139,8 +123,8 @@ def run_topology(jax, jnp, urdf, name, K, warm_iters, rtt, B=1024):
                   np.array([0.1, -0.1, 0.1]))
     )
 
-    r_full = bench_tick(jax, jnp, full, model, qs, qds, fs, K, warm_iters, rtt)
-    r_red = bench_tick(jax, jnp, red, model, qs, qds, fs, K, warm_iters, rtt)
+    r_full = bench_tick(jax, jnp, full, model, qs, qds, fs, K, warm_iters)
+    r_red = bench_tick(jax, jnp, red, model, qs, qds, fs, K, warm_iters)
 
     # cross-formulation truth: τ_grav identical linear algebra in different
     # coordinates — anything beyond f32 roundoff is a bug
@@ -177,7 +161,7 @@ def run_topology(jax, jnp, urdf, name, K, warm_iters, rtt, B=1024):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "reduced_bench_r04.json"))
+        REPO, "out", "reduced_bench.json"))
     ap.add_argument("--k", type=int, default=256)
     ap.add_argument("--warm-iters", type=int, default=7)
     ap.add_argument("--batch", type=int, default=1024)
@@ -188,28 +172,25 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-    except Exception:
-        pass
+    from libdwbc_tpu import runtime
 
-    rtt = _rtt(jax, jnp)
+    runtime.enable_compile_cache()
+    runtime.require_gpu()
     rows = [run_topology(
         jax, jnp, "/root/reference/tests/dyros_tocabi.urdf", "tocabi33",
-        args.k, args.warm_iters, rtt, B=args.batch,
+        args.k, args.warm_iters, B=args.batch,
     )]
     if args.dof45:
         rows.append(run_topology(
             jax, jnp, "/root/reference/tests/dof_test/dyros_tocabi_dof45.urdf",
-            "dof45", args.k, args.warm_iters, rtt, B=args.batch,
+            "dof45", args.k, args.warm_iters, B=args.batch,
         ))
     out = dict(
-        backend=jax.default_backend(),
+        device=runtime.device_info(), card=runtime.card_line(),
         batch=args.batch, chained_ticks=args.k, warm_iters=args.warm_iters,
-        host_device_rtt_ms=round(rtt * 1e3, 2),
         rows=rows,
     )
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

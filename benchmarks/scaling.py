@@ -2,10 +2,11 @@
 
 Measures solves/s at 1..N devices with the scenario grid sharded over the
 ('hyp','roll') mesh (BASELINE north-star: ≥80% linear scaling to 2+ hosts).
-On a multi-chip TPU slice the collectives ride ICI; on this single-chip dev
-environment the harness runs on N virtual CPU devices
-(xla_force_host_platform_device_count) to validate the machinery — absolute
-numbers there measure host cores, not TPU scaling.
+With --devices native it uses the machine's accelerators (one process
+drives them all); by default it runs on N virtual CPU devices to validate
+the machinery — absolute numbers there measure host cores, not device
+scaling.  --spawn2 starts a second process and therefore stays on the CPU:
+a second JAX process cannot share a GPU that the first one holds.
 
 Usage: python benchmarks/scaling.py [-n 8] [-B 512] [--devices cpu|native]
 """
@@ -29,8 +30,8 @@ def main():
     ap.add_argument("--iters", type=int, default=6)
     ap.add_argument("--distributed", action="store_true",
                     help="multi-host run: jax.distributed.initialize via the "
-                         "standard env (JAX_COORDINATOR_ADDRESS / TPU pod "
-                         "runtime), DCN-aware global ('hyp','roll') mesh, "
+                         "standard env (JAX_COORDINATOR_ADDRESS) or the "
+                         "explicit options below, global ('hyp','roll') mesh, "
                          "per-process local shards. Launch one copy of this "
                          "script per host.")
     ap.add_argument("--coordinator", default=None,
@@ -39,14 +40,13 @@ def main():
     ap.add_argument("--nprocs", type=int, default=None)
     ap.add_argument("--pid", type=int, default=None)
     ap.add_argument("--cpu-devices", type=int, default=None,
-                    help="virtual CPU devices per process (loopback-DCN "
+                    help="virtual CPU devices per process (loopback "
                          "validation runs; sets gloo CPU collectives)")
     ap.add_argument("--out", default=None, help="write result JSON here")
     ap.add_argument("--spawn2", action="store_true",
-                    help="convenience: launch TWO local processes over "
-                         "loopback DCN (2 virtual CPU devices each) and "
-                         "record the artifact — the minimal real multi-"
-                         "process validation this environment can run")
+                    help="launch TWO local CPU-only processes over loopback "
+                         "(2 virtual CPU devices each): the minimal real "
+                         "multi-process validation")
     args = ap.parse_args()
 
     if args.spawn2:
@@ -205,12 +205,13 @@ def _run_distributed(args):
 
 
 def _spawn2(args):
-    """Launch 2 local processes over loopback DCN; write scaling artifact."""
+    """Launch 2 local processes over loopback.  Both are CPU-only
+    (--cpu-devices): one JAX process per GPU, so the pair never opens a
+    card."""
     import subprocess
 
     here = os.path.abspath(__file__)
-    out = args.out or os.path.join(
-        os.path.dirname(here), "scaling_r04_distributed.json")
+    out = args.out
     base = [
         sys.executable, here, "--distributed",
         "--coordinator", "localhost:29408", "--nprocs", "2",
@@ -219,7 +220,7 @@ def _spawn2(args):
     ]
     p1 = subprocess.Popen(base + ["--pid", "1"],
                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-    p0 = subprocess.run(base + ["--pid", "0", "--out", out],
+    p0 = subprocess.run(base + ["--pid", "0"] + (["--out", out] if out else []),
                         capture_output=True, text=True, timeout=900)
     out1, err1 = p1.communicate(timeout=120)
     if p0.returncode != 0:
@@ -227,7 +228,8 @@ def _spawn2(args):
         sys.exit(p0.returncode)
     print(p0.stdout.strip())
     print(out1.decode().strip())
-    print(f"artifact: {out}")
+    if out:
+        print(f"artifact: {out}")
 
 
 if __name__ == "__main__":

@@ -1,27 +1,27 @@
 """Speed-of-light accounting for the FULL fused control tick.
 
-Extends benchmarks/sol_qp.py (isolated IPM kernel) to the whole tick:
 FK + point jacobians + world-origin CRBA + A⁻¹ + contact space + JKT +
 constraint assembly + all three IPM QPs (BASELINE.md: "per-chip
 speed-of-light for the dynamics and QP kernels").
 
-FLOP counting: the fused Pallas kernel and ``FusedTick(backend='xla')``
-trace the IDENTICAL element-leading program (ops/tick_kernel.py — same
-jaxpr, different lowering), so XLA's ``compiled.cost_analysis()['flops']``
-on the XLA lowering is an exact count of the arithmetic the Pallas kernel
-executes per tick, as optimized (structural zeros already elided by the
-program construction; XLA CSE applied).  Counted at the serving shape:
-warm-start inputs, warm_iters IPM iterations.
+FLOP counting: XLA's pre-optimization cost analysis of FusedTick's
+element-leading program (ops/tick_kernel.py) on the CPU is a count of the
+arithmetic a tick needs per solve (structural zeros already elided by the
+program construction).  Counted at the serving shape: warm-start inputs,
+warm_iters IPM iterations.
 
 Per-stage split: the same analysis on ``prestage`` alone separates the
 dynamics pipeline from the QP chain.
 
-Measured throughput comes from the same chained-scan methodology as
-bench.py; % of peak = measured_solves/s × flops_per_solve ÷ VPU f32 FMA
-peak (the fused kernel is VPU-only — it emits no matmul ops; see
-sol_qp.py for why the MXU cannot be fed at these shapes).
+Measured throughput: the serving tick (libdwbc_tpu.backend's choice) in
+bench.py's chained-scan shape on the GPU, timed with block_until_ready;
+% of peak = solves/s × flops_per_solve ÷ the device's float32 peak outside
+the tensor cores (the tick's arithmetic is elementwise; it emits no dots
+worth a tensor core).  flops_per_solve is the fused program's count, the
+arithmetic a tick needs, so the share is one of needed work, not of what
+the serving tick executes.  Peaks come from PEAKS, keyed by device_kind;
+a device that is not in the table is an error.
 
-Writes benchmarks/sol_tick_r04.json.
 Usage: python benchmarks/sol_tick.py [--batch 1024] [--chain 64]
        [--warm-iters 7] [--flops-only]
 """
@@ -32,18 +32,26 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-VPU_PEAK_F32 = 8 * 128 * 4 * 0.94e9 * 2  # v5e: lanes×ALUs×clock×(FMA=2) ≈ 7.7 TF/s
+# Published peaks per device_kind (dense, full power limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": dict(
+        f32_flops=67e12, hbm_bytes_per_s=3.35e12,
+        source="NVIDIA H100 SXM data sheet: 67 TFLOP/s FP32 outside the "
+               "tensor cores, 3.35 TB/s HBM3",
+    ),
+}
+
+
+def peak_for(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peak for device_kind {device_kind!r}")
+    return PEAKS[device_kind]
 
 
 def _flops_of(fn, *args, **kwargs):
@@ -51,11 +59,10 @@ def _flops_of(fn, *args, **kwargs):
     nothing is executed).
 
     PRE-optimization HLO cost analysis: the post-optimization count is
-    inflated ~20× by CPU fusion rematerialization (instructions duplicated
-    into multiple fusions are counted once per fusion — measured 14.6M vs
-    712k flops/solve on the same program), which says nothing about the
-    arithmetic the Pallas lowering executes.  The pre-opt count is the
-    program as written, with structural zeros already elided by the
+    inflated by CPU fusion rematerialization (instructions duplicated into
+    multiple fusions are counted once per fusion), which says nothing about
+    the arithmetic the tick executes.  The pre-opt count is the program as
+    written, with structural zeros already elided by the
     element-leading construction."""
     import jax
 
@@ -72,29 +79,26 @@ def main():
     ap.add_argument("--chain", type=int, default=64)
     ap.add_argument("--warm-iters", type=int, default=7)
     ap.add_argument("--flops-only", action="store_true",
-                    help="skip the TPU measurement (reuse a BENCH number)")
+                    help="count FLOPs only; no device measurement")
     ap.add_argument("--solves-per-sec", type=float, default=None,
                     help="use this measured throughput instead of timing")
     ap.add_argument("-o", "--out", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "sol_tick_r04.json"))
+        REPO, "out", "sol_tick.json"))
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-    except Exception:
-        pass
-
     import __graft_entry__ as ge
+    from libdwbc_tpu import runtime
+
+    runtime.enable_compile_cache()
     from libdwbc_tpu.wbc.fused import FusedTick
     from libdwbc_tpu.wbc.pipeline import standard_tocabi_config
 
-    model, _ = ge._model_and_tick(fused=False)
+    model, _ = ge._model_and_tick()
     cfg = standard_tocabi_config(model, qp_iters=12)
-    xt = FusedTick(model, cfg, dtype=jnp.float32, backend="xla")
+    xt = FusedTick(model, cfg, dtype=jnp.float32)
 
     # ---- FLOP counts (CPU lowering of the identical program) ------------
     B = 8  # count at a tiny batch; flops scale exactly linearly in B
@@ -129,61 +133,19 @@ def main():
 
     # ---- measured throughput -------------------------------------------
     sps = args.solves_per_sec
-    rtt_ms = None
+    peak = None
     if sps is None and not args.flops_only:
-        tick = FusedTick(model, cfg, dtype=jnp.float32)
+        runtime.require_gpu()
+        peak = peak_for(runtime.device_info()["kind"])
+        _, tick = ge._model_and_tick(qp_iters=12)
+        import bench
 
-        def _rtt():
-            f = jax.jit(lambda x: x * 2.0)
-            x0 = jax.device_put(np.ones(8, np.float32))
-            float(jnp.sum(f(x0)))
-            ts = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                float(jnp.sum(f(x0)))
-                ts.append(time.perf_counter() - t0)
-            return float(np.median(ts))
-
-        rtt = _rtt()
-        rtt_ms = round(rtt * 1e3, 2)
-        Bm = args.batch
         K = args.chain
-        rng = np.random.default_rng(0)
-        qsm = np.tile(q, (Bm, 1)).astype(np.float32)
-        qsm[:, 6:39] += 0.02 * rng.standard_normal((Bm, 33)).astype(np.float32)
-        qdm = np.zeros((Bm, model.ndof), np.float32)
-        fsm = tuple(np.tile(f, (Bm, 1)).astype(np.float32) for f in fstars)
-
-        @jax.jit
-        def chained(q0, qd0, fss):
-            w0 = tick.init_warm((Bm,))
-            res0, w = tick._tick_impl(q0, qd0, fss, warm=w0, qp_iters=12)
-            q1 = q0.at[:, 6:6 + model.model_dof].add(
-                1e-6 * jnp.tanh(res0.torque_cmd))
-
-            def body(carry, _):
-                qq, qqd, ww = carry
-                res, ww = tick._tick_impl(qq, qqd, fss, warm=ww,
-                                          qp_iters=args.warm_iters)
-                qq = qq.at[:, 6:6 + model.model_dof].add(
-                    1e-6 * jnp.tanh(res.torque_cmd))
-                return (qq, qqd, ww), None
-
-            (qq, _, _), _ = jax.lax.scan(body, (q1, qd0, w), None, length=K - 1)
-            return qq
-
-        a = (jax.device_put(qsm), jax.device_put(qdm),
-             tuple(jax.device_put(f) for f in fsm))
-        r = chained(*a)
-        float(jnp.sum(r))
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            r = chained(*a)
-            float(jnp.sum(r))
-            ts.append(time.perf_counter() - t0)
-        per_tick = (float(np.median(ts)) - rtt) / K
-        sps = Bm / per_tick
+        a = jax.device_put(ge._batch_inputs(model, args.batch, seed=0))
+        chained = bench._chain(jax, jnp, tick, model, K, args.warm_iters)
+        jax.block_until_ready(chained(*a))
+        ts = [bench._timed(jax, chained, *a)[0] for _ in range(3)]
+        sps = args.batch * K / float(np.median(ts))
 
     out = dict(
         metric="fused_tick_speed_of_light",
@@ -192,17 +154,22 @@ def main():
         flops_per_solve=round(flops_per_solve, 1),
         flops_prestage=round(flops_pre, 1),
         flops_qp_chain=round(flops_qp, 1),
-        vpu_fma_peak_gflops=round(VPU_PEAK_F32 / 1e9, 1),
-        flop_bound_solves_per_sec=round(VPU_PEAK_F32 / flops_per_solve, 1),
     )
+    if peak is not None:
+        out.update(
+            device=runtime.device_info(), card=runtime.card_line(),
+            f32_peak_flops=peak["f32_flops"], peak_source=peak["source"],
+            flop_bound_solves_per_sec=peak["f32_flops"] / flops_per_solve,
+        )
     if sps is not None:
         out.update(
-            solves_per_sec=round(sps, 1),
-            achieved_gflops=round(sps * flops_per_solve / 1e9, 1),
-            pct_of_flop_peak=round(
-                100.0 * sps * flops_per_solve / VPU_PEAK_F32, 2),
-            host_device_rtt_ms=rtt_ms,
+            solves_per_sec=sps,
+            achieved_gflops=sps * flops_per_solve / 1e9,
         )
+        if peak is not None:
+            out["pct_of_f32_peak"] = (
+                100.0 * sps * flops_per_solve / peak["f32_flops"])
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

@@ -17,7 +17,7 @@ feasibility throughout:
      the swing-foot servo then tracks a step trajectory in single support.
 
 Run:  python examples/serving_demo.py  [--ticks 300]  (CPU, ~minutes; the
-same code runs unchanged on TPU at f32).
+same code runs unchanged on a GPU at f32).
 """
 
 import argparse
@@ -35,7 +35,7 @@ def main(n_ticks=300, n_envs=32, dtype_str="float64", verbose=True,
 
     if force_cpu:
         # env vars alone are unreliable in this image (CLAUDE.md); the demo
-        # runs CPU f64 by default — pass force_cpu=False for TPU f32
+        # runs CPU f64 by default — pass force_cpu=False for GPU f32
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

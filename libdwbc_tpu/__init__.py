@@ -1,27 +1,27 @@
-"""libdwbc-tpu: TPU-native whole-body control for floating-base humanoids.
+"""libdwbc-tpu: batched whole-body control for floating-base humanoids.
 
 Operational-space WBC (OSF-HQP), reduced-dimension contact-consistent
 dynamics, and acceleration-level lexicographic QP cascades as a compiler +
-batched kernel engine on JAX/XLA/Pallas, with a native C++ host runtime.
+batched kernel engine on JAX/XLA, with a native C++ host runtime.
 
 Entry points:
   RobotData            — reference-compatible controller facade
   CompiledTick         — fused single-graph control tick (batch/shard ready)
+  backend.serving_tick — the tick that serves on this platform
   RobotModel           — compiled model artifact (URDF → static arrays)
   RlWBCBridge          — RL environment bridge (single + batched)
 """
 
 __version__ = "0.1.0"
 
-# TPU correctness: XLA's DEFAULT matmul precision on TPU feeds f32 einsums
-# through the MXU at bfloat16 input precision.  For control math that is
-# catastrophic — measured on v5e (round 3): the batched tick's τ_grav was
-# off by up to 119 Nm (median 8.4 Nm) against f64 truth purely from the
-# bf16-degraded mass-matrix/jacobian products; with float32 precision the
-# same graph matches CPU f64 to ~1e-3.  A torque-controlled robot cannot
-# serve under that default, so the package pins exact-f32 matmuls globally
-# (CPU is unaffected; the Pallas fused tick never emits matmul ops and is
-# immune either way).  Opt out with DWBC_ALLOW_BF16_MATMUL=1 only for
+# Exact float32 matmuls.  On the GPU, XLA may run a float32 dot or einsum
+# on the tensor cores in TF32, which keeps about three decimal digits.  For
+# control math that is not acceptable: the mass-matrix and jacobian
+# products feed a Cholesky-based contact space and QPs, which amplify
+# input rounding into torque errors far above the 1e-2 Nm at which exact
+# f32 agrees with f64 truth (chip_smoke.py checks it on the card).  So the
+# package pins float32 precision globally; CPU results are unaffected.
+# Opt out with DWBC_ALLOW_BF16_MATMUL=1 only for
 # throughput experiments whose outputs you do not act on.
 import os as _os
 

@@ -6,8 +6,7 @@ Python/JAX-first, so the bridge is a thin convenience class with the same
 surface: fixed Tocabi setup (2 foot contacts, pelvis-6D + upper-body-rotation
 tasks, 300 Nm limits), MuJoCo qpos quaternion reorder, and the
 grav→task→redistribute tick.  For vectorized RL environments use
-``BatchedRlWBCBridge`` — thousands of envs solved per call on one chip, which
-is the whole point of the TPU build.
+``BatchedRlWBCBridge`` — thousands of envs solved per call on one device.
 """
 
 from __future__ import annotations

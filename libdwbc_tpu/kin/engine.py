@@ -1,4 +1,4 @@
-"""Batched kinematics/dynamics engine: the TPU-native UpdateKinematics.
+"""Batched kinematics/dynamics engine: the compiled UpdateKinematics.
 
 Replaces the reference's per-tick RBDL calls (``RobotData::UpdateKinematics``,
 /root/reference/src/dwbc.cpp:279-371) with a single pure function of
@@ -203,8 +203,8 @@ class Kinematics:
 
         A single masked cross-product pass replaces P tree walks.  Layout is
         component-major (...,P,3,ndof) throughout: the dof axis — the only
-        wide one — stays in the TPU lane dimension (a (…,ndof,3) layout puts
-        3 in lanes, ~2 % occupancy), and the output rows [Jv;Jw] concatenate
+        wide one — stays minor (a (…,ndof,3) layout puts the 3 minor), and
+        the output rows [Jv;Jw] concatenate
         directly with no transposes of the big temporaries.
         """
         dof_axis, dof_origin, is_trans = self._dof_frames(fk)
@@ -343,16 +343,9 @@ class Kinematics:
 
         A = self.mass_matrix(fk, Jcom)
 
-        # Unrolled Cholesky inverse: XLA's LAPACK-shaped batched cholesky /
-        # cho_solve are latency-bound on TPU at these sizes (≤48 dof).
-        # Large batches on TPU route to the Pallas megakernel — the unrolled
-        # XLA graph's intermediates round-trip HBM between fusions and
-        # dominated the batched tick (see ops/pallas_linalg.py).
-        from ..ops.pallas_linalg import pallas_inv_eligible, pallas_psd_inverse
-
-        if pallas_inv_eligible(A):
-            A_inv = pallas_psd_inverse(A)
-        elif self.ndof <= 48:
+        # Unrolled Cholesky inverse at these sizes (≤48 dof) rather than
+        # XLA's LAPACK-shaped batched cholesky / cho_solve.
+        if self.ndof <= 48:
             A_inv = sm.psd_inverse(A)
         else:
             eye = jnp.broadcast_to(jnp.eye(self.ndof, dtype=dtype), A.shape)

@@ -180,13 +180,13 @@ def _merge_inertial(
 
 
 def compile_urdf(path_or_string: str, floating: bool = True) -> RobotModel:
-    """Compile a URDF into a RobotModel (the TPU-native LoadModelData)."""
+    """Compile a URDF into a RobotModel (the compiled LoadModelData)."""
     urdf = parse_urdf(path_or_string)
     return compile_model(urdf, floating)
 
 
 # ---------------------------------------------------------------------------
-# Programmatic (non-URDF) model construction — the TPU-native analog of
+# Programmatic (non-URDF) model construction — the analog of
 # ``RobotData::InitModelWithLinkJoint`` (/root/reference/src/dwbc.cpp:2425-2471),
 # which rebuilds an RBDL model from parallel std::vector<Link>/<Joint>.
 # Here the same parallel-vector shape compiles straight to a RobotModel.

@@ -3,7 +3,7 @@
 The reference mutates RBDL's internal vectors in place (``DeleteLink``,
 ``AddLink``, ``ChangeLinkToFixedJoint``, ``ChangeLinkInertia``,
 /root/reference/src/dwbc.cpp:1821-2382, 2707-2748) and then renumbers all
-bookkeeping (``InitAfterModelMod``).  In the TPU design the model is a static
+bookkeeping (``InitAfterModelMod``).  Here the model is a static
 compiled artifact, so surgery = build a new :class:`RobotModel` and recompile
 the (cached) kernels — no in-graph mutation, no renumbering bugs.
 

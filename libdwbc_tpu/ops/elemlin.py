@@ -1,20 +1,15 @@
-"""Element-leading linear algebra: the math core of the fused Pallas tick.
+"""Element-leading linear algebra: the math core of the fused tick.
 
-Layout convention ("batch in lanes", same as ops/pallas_qp.py): every value
-has its *element indices leading* and the batch dimensions trailing —
+Layout convention ("batch in lanes"): every value has its *element indices
+leading* and the batch dimensions trailing —
 
     matrix: (m, n, *bt)     vector: (n, *bt)     scalar: (*bt)
 
-Inside a Pallas kernel bt = (8, 128) (one VPU tile of 1024 scenarios);
-outside it bt is anything ((), (B,), ...), so THE SAME functions trace as a
-plain XLA graph — that is how the fused tick is parity-tested on CPU f64
-against the reference-validated pipeline before the kernel ever touches a
-TPU.
-
-Only ops Mosaic lowers reliably are used: elementwise arithmetic, leading-
-axis reductions (jnp.sum/min/max/argmax over axis 0/1), static slices,
-concatenate/stack on leading axes, and broadcasted_iota.  No einsums, no
-gather, no lax.linalg.
+bt is anything ((), (B,), ...), so the same functions trace at any batch
+— that is how the fused tick is parity-tested on CPU f64 against the
+reference-validated pipeline.  Only elementwise arithmetic, leading-axis
+reductions, static slices and stacks/concatenations on leading axes are
+used: no einsums, no gather, no lax.linalg.
 
 Algorithms mirror ops/smallmat.py (the golden-validated unrolled kernels)
 transposed into this layout; numerics are identical up to summation order.
@@ -29,7 +24,7 @@ import jax.numpy as jnp
 # ------------------------------------------------------------- products
 def mm(A, B):
     """(m,k)+bt @ (k,n)+bt -> (m,n)+bt.  Loop over the contraction dim
-    (small everywhere in the tick); each term is a full-width VPU op."""
+    (small everywhere in the tick); each term is one full-width op."""
     k = A.shape[1]
     acc = A[:, 0][:, None] * B[0][None]
     for i in range(1, k):
@@ -105,8 +100,8 @@ def const(x, bt_rank, dtype):
     """Static numpy constant -> jnp array with `bt_rank` trailing singleton
     batch dims, ready to broadcast against (elem...)+bt values.
 
-    NOT usable inside a Pallas kernel (captured array constants are
-    rejected); kernels use the static-operand helpers below, which embed
+    NOT usable inside a kernel (captured array constants are rejected);
+    kernels use the static-operand helpers below, which embed
     constants as Python scalars and skip structural zeros."""
     import numpy as np
 
@@ -116,7 +111,7 @@ def const(x, bt_rank, dtype):
 
 # ------------------------------------------------- static-operand products
 # One operand is a host-side numpy constant: its entries become Python
-# scalar literals in the traced program (Pallas-safe — nothing captured)
+# scalar literals in the traced program (kernel-safe — nothing captured)
 # and exact zeros/ones cost nothing.  These carry most of the FK/CRBA
 # constants (joint axes, X_T transforms, inertia tensors, constraint
 # blocks), which are extremely sparse.
@@ -188,14 +183,14 @@ def mm_sd(A_np, B):
 
 def svec(vals, zero):
     """static 1-D values -> (n,)+bt array built by arithmetic on a traced
-    zero scalar (Pallas-safe constant vector)."""
+    zero scalar (kernel-safe constant vector)."""
     return jnp.stack(
         [zero + float(v) if float(v) != 0.0 else zero for v in vals], axis=0
     )
 
 
 def smat(M_np, zero):
-    """static 2-D values -> (m,n)+bt (Pallas-safe constant matrix)."""
+    """static 2-D values -> (m,n)+bt (kernel-safe constant matrix)."""
     return jnp.stack([svec(row, zero) for row in M_np], axis=0)
 
 
@@ -217,10 +212,9 @@ def chol_factor(M):
     ops/smallmat.chol (identical recurrence, pivots clamped at 1e-30).
 
     One rsqrt per column replaces the per-element divide chain of the
-    naive form (TPU VPU divides lower to multi-op reciprocal sequences —
-    n²/2 of them per factorization was a measured cost on the fused-tick
-    critical path); the reciprocal diagonal is returned so the triangular
-    solves below can multiply instead of divide too."""
+    naive form (n²/2 divides per factorization); the reciprocal diagonal is
+    returned so the triangular solves below can multiply instead of divide
+    too."""
     n = M.shape[0]
     S = M
     cols = []
@@ -229,9 +223,8 @@ def chol_factor(M):
         s00 = jnp.maximum(S[0, 0], 1e-30)
         inv_d = jax.lax.rsqrt(s00)
         col = S[:, 0] * inv_d[None]                  # (n-j,)+bt, col[0] = d
-        # NB Mosaic: col[1:, None] (slice+newaxis in ONE getitem) lowers to
-        # a gather, and the last column's empty update would create 0-sized
-        # vectors — split the getitems and skip the empty trailing block
+        # the last column's empty update would create 0-sized values:
+        # skip the empty trailing block
         if j < n - 1:
             ctail = col[1:]
             S = S[1:, 1:] - ctail[:, None] * ctail[None]
@@ -475,7 +468,7 @@ def complete_basis(A):
     for _ in range(m - k):
         nrm = jnp.sum(R * R, axis=0)                    # (m,)+bt
         # first-argmax one-hot via prefix products (no argmax/iota/gather —
-        # lowering-safe inside Mosaic, same selection as smallmat's argmax)
+        # lowering-safe in a kernel, same selection as smallmat's argmax)
         nmax = jnp.max(nrm, axis=0)
         hit = (nrm >= nmax[None]).astype(A.dtype)
         run = []

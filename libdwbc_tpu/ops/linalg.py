@@ -3,7 +3,7 @@
 The reference leans on Eigen's rank-revealing complete orthogonal
 decomposition (``PinvCOD``/``PinvCODWB``, /root/reference/src/math.cpp:23-53,
 src/wbd.cpp:5-53) with a 1e-6 threshold.  Rank-revealing factorizations are
-data-dependent — hostile to XLA.  On TPU we exploit two facts:
+data-dependent — hostile to XLA.  Here we exploit two facts:
 
 * every matrix the reference pseudo-inverts is **symmetric PSD** (W = block of
   A⁻¹N_C; QW⁻¹Qᵀ; …), so a symmetric eigendecomposition gives the

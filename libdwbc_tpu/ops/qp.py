@@ -1,4 +1,4 @@
-"""Batched fixed-iteration QP solver: the TPU-native qpOASES replacement.
+"""Batched fixed-iteration QP solver: the qpOASES replacement.
 
 The reference solves every per-tick QP with qpOASES' dense active-set method
 (`CQuadraticProgram::SolveQPoases`, /root/reference/src/qp_wrapper.cpp:192-380)
@@ -9,10 +9,10 @@ an **active-set polish** step that recovers the exact vertex solution
 active-set methods produce.  Everything is dense, shape-static, batched, and
 differentiable.
 
-Performance notes (measured on TPU v5e): XLA's LAPACK-shaped batched
-`cholesky`/`solve` dominate wall-clock for these tiny systems, so every
-factorization here uses the unrolled straight-line kernels in
-``ops.smallmat`` (batch dim → VPU lanes).  The polish KKT system is reduced
+Factorizations of these tiny systems (n ≤ 48) use the unrolled
+straight-line kernels in ``ops.smallmat`` (batch dim trailing, one fused
+elementwise program) rather than XLA's LAPACK-shaped batched
+`cholesky`/`solve`.  The polish KKT system is reduced
 analytically to an n×n PSD solve via the exact penalty identity
 ``((1-D) + ρI)⁻¹D = D/ρ`` instead of forming the (n+m)×(n+m) saddle system.
 
@@ -36,9 +36,9 @@ import jax.numpy as jnp
 from . import smallmat as sm
 
 _BIG = 1.0e20
-# Unrolled small-matrix kernels win below this size (VPU lane batching, no
-# LAPACK-call latency); above it their straight-line code explodes compile
-# time and lax.linalg wins.
+# Unrolled small-matrix kernels below this size (no LAPACK-call latency);
+# above it their straight-line code explodes compile time and lax.linalg
+# takes over.
 _UNROLL_LIMIT = 48
 
 
@@ -57,33 +57,6 @@ def _cho_solve(L, b, unrolled: bool):
 
 def _psd_solve(K, b, unrolled: bool):
     return _cho_solve(_chol(K, unrolled), b, unrolled)
-
-
-def _pallas_eligible(H, g, A, lb, ub, Aeq, backend) -> bool:
-    """Route to the Pallas megakernel: TPU, f32, one-sided, no equalities,
-    small variable count, and a real leading batch dimension (the kernel
-    pads to 1024-scenario tiles — single problems would waste a full tile
-    unless explicitly forced)."""
-    import os
-
-    if os.environ.get("DWBC_PALLAS_QP", "1") == "0":
-        return False
-    if lb is not None or Aeq is not None:
-        return False
-    if H.dtype != jnp.float32:
-        return False
-    n = H.shape[-1]
-    if n > 24 or A.shape[-2] > 512:
-        return False
-    batched = (A.ndim >= 3) or (g.ndim >= 2)
-    if backend == "pallas":
-        return True
-    if not batched:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 class QPSolution(NamedTuple):
@@ -130,10 +103,10 @@ def _one_sided(A, lb, ub):
     return C, d
 
 
-@partial(jax.jit, static_argnames=("iters", "ridge", "backend", "mirror"))
+@partial(jax.jit, static_argnames=("iters", "ridge"))
 def solve_qp(
     H, g, A, lb, ub, Aeq=None, beq=None, iters: int = 30, ridge: float = 1.0e-9,
-    backend: str = "auto", warm=None, mirror: int = 0,
+    warm=None,
 ) -> QPSolution:
     """Solve one (or a batch of) dense QPs.  All args broadcast on leading dims.
 
@@ -143,72 +116,8 @@ def solve_qp(
 
     iters: static IPM iteration count (30 reaches ~1e-9 on well-scaled
     problems; polish then drives exact-vertex accuracy).
-    backend: 'auto' routes small one-sided f32 problems with a single leading
-    batch dim to the Pallas lane-batched megakernel on TPU; 'xla' forces the
-    pure-XLA path; 'pallas' forces the kernel.
-    mirror: static row count k such that A[k:2k] == -A[:k] with finite ub on
-    both sides (the ± torque-limit pairs every WBC QP carries) — lets the
-    Pallas kernel skip storing/reducing the redundant -block.  The caller
-    guarantees the structure; it is not checked.
     """
     n = H.shape[-1]
-    if backend != "xla" and _pallas_eligible(H, g, A, lb, ub, Aeq, backend):
-        from .pallas_qp import pallas_qp_solve
-
-        m_ = A.shape[-2]
-        bshape = jnp.broadcast_shapes(
-            H.shape[:-2], g.shape[:-1], A.shape[:-2], ub.shape[:-1]
-        )
-        B = 1
-        for s_ in bshape:
-            B *= s_
-        ub_f = jnp.isfinite(ub) & (jnp.abs(ub) < _BIG)
-        C_ = A * ub_f[..., :, None]
-        d_ = jnp.where(ub_f, ub, 1.0)
-        Hb = jnp.broadcast_to(H, bshape + (n, n)).reshape(B, n, n).astype(jnp.float32)
-        gb = jnp.broadcast_to(g, bshape + (n,)).reshape(B, n).astype(jnp.float32)
-        Cb = jnp.broadcast_to(C_, bshape + (m_, n)).reshape(B, m_, n).astype(jnp.float32)
-        db = jnp.broadcast_to(d_, bshape + (m_,)).reshape(B, m_).astype(jnp.float32)
-        # Bucket (n, m) to fixed sizes so every QP in a pipeline shares ONE
-        # Mosaic kernel compilation: padded variables get an identity
-        # Hessian block (solution 0), padded rows become 0·x ≤ 1.  The row
-        # bucket is 8 (not 32): all in-tick QPs have the same row count
-        # anyway, and every dead row costs n Gram FMAs per (i,j) pair in
-        # every IPM iteration plus VMEM for its C rows.
-        n_pad = max(12, -(-n // 4) * 4)
-        m_pad = -(-m_ // 8) * 8
-        if n_pad != n:
-            eyep = jnp.zeros((B, n_pad, n_pad), jnp.float32)
-            eyep = eyep.at[:, :n, :n].set(Hb)
-            eyep = eyep.at[:, jnp.arange(n, n_pad), jnp.arange(n, n_pad)].set(1.0)
-            Hb = eyep
-            gb = jnp.pad(gb, ((0, 0), (0, n_pad - n)))
-            Cb = jnp.pad(Cb, ((0, 0), (0, 0), (0, n_pad - n)))
-        if m_pad != m_:
-            Cb = jnp.pad(Cb, ((0, 0), (0, m_pad - m_), (0, 0)))
-            db = jnp.pad(db, ((0, 0), (0, m_pad - m_)), constant_values=1.0)
-        x0b = lam0b = None
-        if warm is not None:
-            x_w, lam_w = warm
-            x0b = jnp.broadcast_to(x_w, bshape + (n,)).reshape(B, n).astype(jnp.float32)
-            lam0b = jnp.broadcast_to(lam_w, bshape + (m_,)).reshape(B, m_).astype(jnp.float32)
-            if n_pad != n:
-                x0b = jnp.pad(x0b, ((0, 0), (0, n_pad - n)))
-            if m_pad != m_:
-                lam0b = jnp.pad(lam0b, ((0, 0), (0, m_pad - m_)), constant_values=1.0)
-        x, s, lam = pallas_qp_solve(
-            Hb, gb, Cb, db, iters=iters, ridge=max(ridge, 1e-6),
-            x0=x0b, lam0=lam0b, mirror=mirror,
-        )
-        x = x[..., :n].reshape(bshape + (n,))
-        lam = lam[..., :m_].reshape(bshape + (m_,))
-        d_b = jnp.broadcast_to(d_, bshape + (m_,))
-        C_b = jnp.broadcast_to(C_, bshape + (m_, n))
-        slack = d_b - jnp.einsum("...ij,...j->...i", C_b, x)
-        pres = jnp.max(jnp.maximum(-slack, 0.0), axis=-1)
-        gap = _comp_gap(slack, lam, m_)
-        return QPSolution(x=x, lam=lam, gap=gap, primal_res=pres,
-                          polished=jnp.zeros_like(pres, dtype=bool))
     dtype = H.dtype
     f32 = dtype == jnp.float32
     ridge = max(ridge, 1e-6) if f32 else ridge
@@ -329,7 +238,7 @@ def solve_qp(
         # corrector step with Mehrotra centering + second-order term.
         target = (sigma * mu)[..., None] - ds_a * dlam_a
         dx, ds, dlam, dnu = newton_step(fac, s, lam, nu, target)
-        # Non-finite guard, stricter than the Pallas kernels': a lane whose
+        # Non-finite guard, stricter than the fused tick's: a lane whose
         # f32 KKT factorization broke (κ(K) beyond f32 at w≈w_cap) must
         # SKIP its step — and so must a lane whose huge-but-finite step
         # would overflow the NEXT iterate.  nan_to_num-and-step-anyway was

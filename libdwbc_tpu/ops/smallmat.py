@@ -1,11 +1,11 @@
 """Batched small-matrix factorizations as pure jnp programs.
 
 XLA's LAPACK-shaped linalg (lax.linalg.cholesky / qr / triangular_solve) is
-latency-heavy on TPU for tiny matrices and vectorizes poorly across large
+latency-heavy for tiny matrices and vectorizes poorly across large
 batches.  Every matrix in the WBC pipeline is small (≤ 86×90) with a static
 size, so we unroll the factorizations into straight-line elementwise/outer-
 product code: every operation broadcasts over the batch, turning the batch
-dimension into pure VPU lane parallelism (and leaving XLA free to fuse the
+dimension into pure data parallelism (and leaving XLA free to fuse the
 whole factorization into a handful of kernels).
 
 All functions take (..., n, n) / (..., n, m) arrays and are differentiable.
@@ -20,7 +20,7 @@ def chol(A):
     """Cholesky factor L (lower) of a PSD matrix, unrolled over columns.
 
     Uses the outer-product (right-looking) form: n steps, each a masked
-    column scale + rank-1 update — ideal for batched VPU execution.
+    column scale + rank-1 update — ideal for batched elementwise execution.
     """
     n = A.shape[-1]
     S = A
@@ -168,7 +168,7 @@ def qr_inv(M):
 
 def qr_pinv(M, rcond=1e-6):
     """Thresholded pseudo-inverse of a small square matrix via MGS QR —
-    the unrolled TPU-native analog of the reference's rank-revealing COD
+    the unrolled analog of the reference's rank-revealing COD
     pinv with COD_THRESHOLD = 1e-6 (include/dwbc_math.h:13,
     src/math.cpp:23-53).  Directions whose R pivot falls below
     rcond·max|R_ii| are zeroed instead of inverted (rank truncation), so a

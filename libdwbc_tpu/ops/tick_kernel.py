@@ -1,13 +1,12 @@
 """The fused WBC tick as ONE element-leading program: q → τ.
 
-This is the round-3 answer to the tick being glue-bound (~6% of its own
-measured QP speed-of-light): instead of hundreds of XLA ops whose
-(1024, 39, 39)-ish intermediates round-trip HBM between fusions, the ENTIRE
-tick — forward kinematics, point jacobians, the mass matrix via a
-world-frame composite-rigid-body pass, A⁻¹, the contact-space
+The tick's stages are many small matrix ops; as separate XLA ops their
+(B, 39, 39)-ish intermediates round-trip device memory between fusions.
+Here the ENTIRE tick — forward kinematics, point jacobians, the mass matrix
+via a world-frame composite-rigid-body pass, A⁻¹, the contact-space
 factorization, per-level JKT, constraint assembly, and the three IPM QPs —
-is expressed in the element-leading layout of ops/elemlin and runs inside
-one or two Pallas kernel launches (wbc/fused.py).
+is one program in the element-leading layout of ops/elemlin, traced as one
+XLA graph (wbc/fused.py).
 
 Reference parity: this computes exactly the quantities of the per-tick call
 sequence UpdateKinematics → CalcContactConstraint → CalcGravCompensation →
@@ -21,19 +20,18 @@ wbc/dynamics.py, wbc/hqp.py and ops/qp.py:
   and A[i,j] = S_i·(I^C_{body(j)} S_j) over ancestor dof pairs.
   Algebraically identical to RBDL's CRBA (src/dwbc.cpp:305) and to the
   KE-metric Gram form in kin/engine.py::mass_matrix, but needs NO body
-  jacobians at all — the single biggest VMEM/FLOP saving of the fused path;
+  jacobians at all — the single biggest memory/FLOP saving of the fused path;
 * gravity vector: G = −A[0:3,:]ᵀ·g — the reference's COM-jacobian-transpose
   form (src/dwbc.cpp:358) collapsed through CMM[0:3] = A[0:3] (the
   cm_rot6 top rows are [I 0], src/dwbc.cpp:331-341);
 * contact space / JKT / QPs: elem-leading transposes of
   wbc/dynamics.py::contact_space/task_jkt and wbc/hqp.py's assembly, with
   N_C never materialized (J A⁻¹N_C = JA⁻¹ − (JA⁻¹J_Cᵀ)J̄_cᵀ);
-* IPM: the predictor–corrector recurrence of ops/pallas_qp.py (same
-  floors, caps, freeze rule, warm-start split steps, NaN guard).
+* IPM: the predictor–corrector recurrence of ops/qp.py (same floors,
+  caps, freeze rule, warm-start split steps, NaN guard).
 
-Everything here is layout-agnostic over trailing batch dims: the same
-functions trace as a plain XLA graph (CPU f64 parity tests in
-tests/test_fused_tick.py) and inside a Pallas kernel ((8,128) batch tiles).
+Everything here is layout-agnostic over trailing batch dims (CPU f64
+parity tests in tests/test_fused_tick.py).
 """
 
 from __future__ import annotations
@@ -370,7 +368,7 @@ class TickProgram:
         servo_req: static per-level/per-spec booleans — compute those task
         links' (pos, vel, rot, w) for the on-device servo (needs qdot).
 
-        Pallas-safe: all static model data enters as Python scalar literals
+        Kernel-safe: all static model data enters as Python scalar literals
         (elemlin's *_ds/*_sd/svec helpers) — no captured array constants —
         and structural zeros in axes/transforms/constraint blocks cost
         nothing."""
@@ -860,7 +858,7 @@ class TickProgram:
     def _ipm(self, Hdiag, C, d, iters, warm, mirror):
         """One-sided QP min ½xᵀdiag(Hdiag)x s.t. Cx ≤ d (g = 0 — every tick
         QP has a zero linear term).  C is the STORED rows [B; D] with the
-        mirrored −B block folded (ops/pallas_qp.py semantics).  Returns
+        mirrored −B block folded (the torque-limit pairs).  Returns
         (x, s, lam, gap, pres)."""
         dtype = C.dtype
         f32 = dtype == jnp.float32

@@ -2,7 +2,7 @@
 
 The reference switches contact modes by resizing matrices at runtime
 (``SetContact`` booleans → new J_C shape, include/dwbc.h:432-474) — one mode
-per process, recompute everything on change.  The TPU engine instead
+per process, recompute everything on change.  This engine instead
 compiles the tick for EVERY contact mode up front (a handful of static
 branches) and selects per scenario with ``lax.switch``; outputs are padded
 to the largest mode.  Combined with the scenario batch this realizes

@@ -1,16 +1,18 @@
-"""Multi-chip scaling: scenario-batch sharding over a device mesh.
+"""Multi-device scaling: scenario-batch sharding over a device mesh.
 
 The reference is a single-core controller (SURVEY.md §2.2 — no DP/TP/PP/
-collectives anywhere).  The TPU-native framework's scaling axis is the
-**scenario batch**: thousands of control problems (contact-mode hypotheses,
+collectives anywhere).  This framework's scaling axis is the **scenario
+batch**: thousands of control problems (contact-mode hypotheses,
 disturbance rollouts, gait phases) solved per step, sharded over a 2-D mesh
 
     ('hyp', 'roll')  — hypothesis axis × rollout axis
 
-with XLA collectives (psum / argmin reductions over ICI) selecting the best
-hypothesis.  Within a scenario everything is tiny (39-dof) — there is nothing
-to tensor-parallelize per problem; chips are filled by batching, exactly the
-regime BASELINE.json's north star describes.
+with XLA collectives (argmin reductions) selecting the best hypothesis.
+Every GPU of a host reaches every other at the same NVLink rate, so the
+mesh is a plain reshape of the device list.  Within a scenario everything
+is tiny (39-dof) — there is nothing to tensor-parallelize per problem;
+devices are filled by batching, exactly the regime BASELINE.json's north
+star describes.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def make_mesh(n_hyp: int | None = None, n_roll: int | None = None, devices=None)
                 n_hyp = f
                 break
         n_roll = n // n_hyp
-    dev_mesh = mesh_utils.create_device_mesh((n_hyp, n_roll), devices=devices)
+    dev_mesh = np.asarray(devices, dtype=object).reshape(n_hyp, n_roll)
     return Mesh(dev_mesh, ("hyp", "roll"))
 
 
@@ -49,7 +51,7 @@ def sharded_batch_solver(tick_impl, mesh: Mesh):
     -> (TickResult batched, best_idx, best_cost).
 
     The best-hypothesis reduction is a real cross-device collective (global
-    argmin over both mesh axes), riding ICI.
+    argmin over both mesh axes).
     """
     vtick = jax.vmap(jax.vmap(tick_impl, in_axes=(0, 0, 0)), in_axes=(0, 0, 0))
 
@@ -68,6 +70,34 @@ def sharded_batch_solver(tick_impl, mesh: Mesh):
     ), in_sharding
 
 
+def sharded_tick_step(tick_impl, mesh: Mesh, **tick_kw):
+    """One batched tick with its batch split over BOTH mesh axes.
+
+    tick_impl: a batched tick (B, ...) -> TickResult (CompiledTick,
+    MaskedTick or FusedTick — shard_map hands each device its local shard,
+    so the tick is never partitioned by XLA).
+    Returns jitted fn (q, qdot, fstars[, contact_mask]) -> (torque_cmd,
+    best_idx, best_cost): the best scenario by command effort plus
+    constraint-violation penalty, a cross-device argmin.
+    """
+    spec = P(("hyp", "roll"))
+
+    def local(*args):
+        r = tick_impl(*args, **tick_kw)
+        cost = jnp.sum(r.torque_cmd**2, axis=-1) + 1e6 * r.qp_primal_res
+        return r.torque_cmd, cost
+
+    def step(*args):
+        tau, cost = jax.shard_map(
+            local, mesh=mesh, in_specs=spec, out_specs=(spec, spec),
+            check_vma=False,
+        )(*args)
+        i = jnp.argmin(cost)
+        return tau, i, cost[i]
+
+    return jax.jit(step)
+
+
 def shard_scenarios(mesh: Mesh, *arrays):
     """Device-put (H,R,...) arrays with the ('hyp','roll') sharding."""
     sh = NamedSharding(mesh, P("hyp", "roll"))
@@ -77,11 +107,10 @@ def shard_scenarios(mesh: Mesh, *arrays):
 # ---------------------------------------------------------------------------
 # Multi-host entry point (BASELINE north star: ≥80% linear solves/s scaling
 # to 2+ hosts).  The reference has no distributed code at all (SURVEY.md
-# §2.2); this is the TPU-native scale-out axis: the same ('hyp','roll')
-# scenario mesh laid out so that the 'roll' axis crosses hosts (DCN) while
-# 'hyp' stays within each host's slice (ICI).  Per-scenario work never
-# communicates; the only cross-host traffic is the scalar argmin reduction
-# in sharded_batch_solver — ideal DCN behavior.
+# §2.2); here the same ('hyp','roll') scenario mesh is laid out so that the
+# 'roll' axis crosses hosts while 'hyp' stays within a host.  Per-scenario
+# work never communicates; the only cross-host traffic is the scalar argmin
+# reduction in sharded_batch_solver.
 # ---------------------------------------------------------------------------
 
 def init_distributed(coordinator: str | None = None,
@@ -90,7 +119,7 @@ def init_distributed(coordinator: str | None = None,
     """Initialize the JAX multi-process runtime (idempotent).
 
     With no arguments, relies on the standard cluster env detection
-    (TPU pod runtime / JAX_COORDINATOR_ADDRESS & friends).  Safe to call in
+    (JAX_COORDINATOR_ADDRESS & friends).  Safe to call in
     a single-process run: if no cluster is configured and no coordinator is
     given, it is a no-op returning False.
     """
@@ -125,13 +154,11 @@ def init_distributed(coordinator: str | None = None,
 
 
 def make_global_mesh(n_hyp: int | None = None):
-    """('hyp','roll') mesh over ALL processes' devices, DCN-aware.
+    """('hyp','roll') mesh over ALL processes' devices.
 
-    Multi-host: 'roll' spans the process (DCN) dimension so each host owns
-    whole hypothesis columns; within a host, devices fill the ICI dimension.
-    Uses create_hybrid_device_mesh so the device order keeps DCN-crossing
-    hops on exactly one mesh axis.  Single-process: identical to
-    make_mesh().
+    Multi-host: 'roll' spans the processes so each host owns whole
+    hypothesis columns; within a host, devices fill the 'hyp' axis.
+    Single-process: identical to make_mesh().
     """
     nproc = jax.process_count()
     if nproc == 1:
@@ -140,18 +167,10 @@ def make_global_mesh(n_hyp: int | None = None):
     if n_hyp is None:
         n_hyp = per_host  # hypotheses within a host, rollouts across hosts
     assert per_host % n_hyp == 0, (n_hyp, per_host)
-    try:
-        # TPU pods: granule = slice, DCN hops isolated on the 'roll' axis
-        dev_mesh = mesh_utils.create_hybrid_device_mesh(
-            (n_hyp, per_host // n_hyp), (1, nproc), devices=jax.devices()
-        )
-    except ValueError:
-        # CPU / single-slice multi-process (loopback-DCN validation):
-        # devices carry no slice_index — group by process instead
-        dev_mesh = mesh_utils.create_hybrid_device_mesh(
-            (n_hyp, per_host // n_hyp), (1, nproc), devices=jax.devices(),
-            process_is_granule=True,
-        )
+    dev_mesh = mesh_utils.create_hybrid_device_mesh(
+        (n_hyp, per_host // n_hyp), (1, nproc), devices=jax.devices(),
+        process_is_granule=True,
+    )
     return Mesh(dev_mesh, ("hyp", "roll"))
 
 

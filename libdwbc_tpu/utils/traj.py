@@ -1,6 +1,6 @@
 """Trajectory generation + operational-space PD servo.
 
-TPU-native, vectorized equivalents of the reference's trajectory layer:
+Vectorized equivalents of the reference's trajectory layer:
 ``QuinticSpline`` (src/math.cpp:127-186), ``cubic`` (187-224),
 ``rotationCubic`` (226-274), and the TaskLink PD servos
 (``GetFstarPosPD``/``GetFstarRotPD``, src/task.cpp:268-339).  All functions

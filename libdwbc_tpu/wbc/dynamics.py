@@ -1,6 +1,6 @@
 """Operational-space WBC kernels (stateless, batched, jit-friendly).
 
-TPU-native re-derivation of the reference's free-function layer
+Batched re-derivation of the reference's free-function layer
 (/root/reference/src/wbd.cpp): contact-consistent dynamics, gravity
 compensation, the dynamically-consistent task-to-torque map (J_kt), task
 null-space chaining, contact force observation, and the closed-form two-foot
@@ -59,15 +59,8 @@ def _chol_health(M):
 def _psd_inv(M):
     """Inverse of a symmetric positive definite matrix via Cholesky.
 
-    Small sizes use the unrolled smallmat kernels: XLA's LAPACK-shaped
-    cholesky/triangular_solve are latency-bound on TPU for tiny batched
-    matrices (measured: they dominated the pre-QP tick wall-clock).  Large
-    TPU batches route to the Pallas megakernel (ops/pallas_linalg.py) —
-    the unrolled XLA graph's HBM round-trips dominated the batched tick."""
-    from ..ops.pallas_linalg import pallas_inv_eligible, pallas_psd_inverse
-
-    if pallas_inv_eligible(M):
-        return pallas_psd_inverse(M)
+    Small sizes use the unrolled smallmat kernels rather than XLA's
+    LAPACK-shaped cholesky/triangular_solve on tiny batched matrices."""
     if M.shape[-1] <= _UNROLL_LIMIT:
         return sm.psd_inverse(M)
     L = jnp.linalg.cholesky(M)
@@ -108,7 +101,7 @@ def contact_space(J_C, A_inv) -> ContactSpace:
 
     J_C: (...,c,n) stacked contact jacobians (pos-first rows); A_inv (...,n,n).
 
-    TPU-native factorization strategy: no rank-revealing decomposition at all.
+    Factorization strategy: no rank-revealing decomposition at all.
     For PSD M with principal submatrix W, x ∈ ker(W) ⟺ [0;x] ∈ ker(M);
     with M = A⁻¹N_C whose kernel is range(J_Cᵀ), the null space of W is
 
@@ -118,7 +111,7 @@ def contact_space(J_C, A_inv) -> ContactSpace:
     the pseudo-inverse from one Cholesky:  W⁺ = (W + V2ᵀV2)⁻¹ − V2ᵀV2
     (exact because V2 is an orthonormal kernel basis).  This replaces the
     reference's COD (src/wbd.cpp:124) and is dramatically faster than
-    iterative eigendecompositions on TPU.
+    iterative eigendecompositions.
     """
     c = J_C.shape[-2]
     n = J_C.shape[-1]
@@ -127,7 +120,7 @@ def contact_space(J_C, A_inv) -> ContactSpace:
     JAinv = J_C @ A_inv                                  # (...,c,n)
     Mc = JAinv @ jnp.swapaxes(J_C, -1, -2)
     Mc = 0.5 * (Mc + jnp.swapaxes(Mc, -1, -2))
-    # Rank-health diagnostics (the TPU-native replacement for the
+    # Rank-health diagnostics (the batched replacement for the
     # reference's COD rank check + "Contact Space Factorization Error"
     # abort, src/wbd.cpp:126-136 / src/dwbc.cpp:3121-3131): a batched
     # numeric indicator instead of a host-side abort.  Two failure modes:

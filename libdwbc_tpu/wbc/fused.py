@@ -1,20 +1,14 @@
-"""FusedTick: the whole WBC tick as Pallas megakernel launches.
+"""FusedTick: the whole WBC tick as one element-leading program.
 
-Drop-in for pipeline.CompiledTick on the serving path (same _tick_impl /
-init_warm interface, same warm-state pytree shapes), with the entire tick —
+Same _tick_impl / init_warm interface and warm-state pytree shapes as
+pipeline.CompiledTick, with the entire tick —
 FK, jacobians, world-frame CRBA, A⁻¹, contact space, JKT, constraint
-assembly, and all QPs — executed inside ONE Pallas kernel per 1024-scenario
-tile (ops/tick_kernel.py holds the math; this module holds the plumbing).
+assembly, and all QPs — expressed by ops/tick_kernel.py; this module holds
+the plumbing.
 
-Why: the XLA tick is glue-bound — at batch 1024 its pre-QP stages cost
-~4.7 ms of HBM-round-tripping small ops while the QPs themselves cost
-~0.25 ms (PERF.md r02 prestage profile).  Inside the kernel every
-intermediate lives in VMEM/registers and every op is a full-width VPU op
-over 1024 lanes.
-
-Backend selection: 'pallas' on TPU f32 (the serving shape); 'xla' runs the
-IDENTICAL element-leading program as a plain XLA graph — the CPU/f64 path
-used by the parity tests, and the fallback wherever Mosaic is unavailable.
+The program is traced as one plain XLA graph with the batch trailing.  It
+does not serve on the GPU: there its compile takes longer than 420 s
+(libdwbc_tpu/backend.py says which tick serves where).
 
 Reference: the per-tick call sequence at /root/reference/src/dwbc.cpp
 (SURVEY.md §3.1); golden/cross-formulation parity in
@@ -23,60 +17,21 @@ tests/test_fused_tick.py.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..model.compile import RobotModel
 from ..ops.tick_kernel import SERVO_ELEM_SHAPES, TickProgram
 from .pipeline import PipelineConfig, TickResult, qp_error_flag
 
-TILE = 8 * 128
-
-
-def _to_tiles(a, Bp):
-    """batch-major (B, el...) → element-leading tiles (el..., R, 128).
-    Pads B→Bp with edge replication (padded lanes must stay numerically
-    valid: FK of an all-zero q would produce NaNs)."""
-    B = a.shape[0]
-    lead = a.shape[1:]
-    if Bp != B:
-        a = jnp.concatenate(
-            [a, jnp.broadcast_to(a[-1:], (Bp - B,) + lead)], axis=0
-        )
-    R = Bp // 128
-    return jnp.moveaxis(a.reshape((R, 128) + lead), (0, 1), (-2, -1))
-
-
-def _from_tiles(a, B):
-    """(el..., R, 128) → (B, el...)."""
-    lead = a.shape[:-2]
-    nd = len(lead)
-    a = jnp.moveaxis(a, (-2, -1), (0, 1))
-    return a.reshape((-1,) + lead)[:B]
-
-
-def _spec(lead):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    L = len(lead)
-    return pl.BlockSpec(
-        tuple(lead) + (8, 128),
-        (lambda i, L=L: (0,) * L + (i, 0)),
-        memory_space=pltpu.VMEM,
-    )
-
 
 class FusedTick:
-    """One fused-kernel WBC tick for a fixed configuration.
+    """One fused WBC tick for a fixed configuration.
 
     API mirrors CompiledTick: __call__(q, qdot, fstars, servos=),
     _tick_impl(..., warm=, qp_iters=, servos=), init_warm(batch).
 
-    servos: the on-device trajectory-PD servo runs INSIDE the fused kernel
+    servos: the on-device trajectory-PD servo runs INSIDE the fused program
     (tick_kernel.py::_servo_fstar_el; 1e-10 parity vs CompiledTick in
     tests/test_fused_servo.py).  qdot feeds the servo'd task links' point
     velocities; without servos it is accepted for interface parity and
@@ -85,22 +40,12 @@ class FusedTick:
     """
 
     def __init__(self, model: RobotModel, cfg: PipelineConfig,
-                 dtype=jnp.float32, backend: str = "auto",
-                 vmem_limit_mb: int = 100, masked: bool = False):
+                 dtype=jnp.float32, masked: bool = False):
         self.model = model
         self.cfg = cfg
         self.dtype = dtype
         self.masked = masked
         self.prog = TickProgram(model, cfg, dtype, masked=masked)
-        self.vmem_limit_mb = vmem_limit_mb
-        if backend == "auto":
-            try:
-                backend = "pallas" if (
-                    jax.default_backend() == "tpu" and dtype == jnp.float32
-                ) else "xla"
-            except Exception:
-                backend = "xla"
-        self.backend = backend
         self._tick = jax.jit(self._tick_impl, static_argnames=("qp_iters",))
 
     # ------------------------------------------------------------- warm
@@ -122,7 +67,7 @@ class FusedTick:
         the MaskedTick._tick_impl signature, so make_control_loop and the
         hypothesis sweeps drive either class.  servos: CompiledTick's
         nested per-level/per-spec ServoParams pytree — the on-device
-        trajectory-PD servo runs INSIDE the fused kernel."""
+        trajectory-PD servo runs INSIDE the fused program."""
         assert (contact_mask is not None) == self.masked
         iters = self.cfg.qp_iters if qp_iters is None else qp_iters
         q = jnp.asarray(q, self.dtype)
@@ -142,14 +87,8 @@ class FusedTick:
                 cmask = cmask[None]
             if warm is not None:
                 warm = tuple((x[None], l[None]) for x, l in warm)
-        B = q.shape[0]
-
-        if self.backend == "pallas":
-            out = self._run_pallas(q, fstars, warm, iters, B, cmask,
-                                   qdot=qdot, servos=servos)
-        else:
-            out = self._run_xla(q, fstars, warm, iters, cmask,
-                                qdot=qdot, servos=servos)
+        out = self._run_xla(q, fstars, warm, iters, cmask,
+                            qdot=qdot, servos=servos)
 
         result = TickResult(
             torque_grav=out["torque_grav"],
@@ -203,7 +142,7 @@ class FusedTick:
             ))
         return tuple(out)
 
-    # -------------------------------------------------- XLA (CPU / f64)
+    # ------------------------------------------------------------- XLA
     def _run_xla(self, q, fstars, warm, iters, cmask=None, qdot=None,
                  servos=None):
         q_el = jnp.moveaxis(q, 0, -1)
@@ -240,145 +179,6 @@ class FusedTick:
         res["warm_out"] = tuple(
             (jnp.moveaxis(x, -1, 0), jnp.moveaxis(l, -1, 0))
             for x, l in out["warm_out"]
-        )
-        return res
-
-    # ------------------------------------------------------ Pallas (TPU)
-    def _run_pallas(self, q, fstars, warm, iters, B, cmask=None, qdot=None,
-                    servos=None):
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        prog = self.prog
-        Bp = ((B + TILE - 1) // TILE) * TILE
-        R = Bp // 128
-        G = Bp // TILE
-        mdof = prog.mdof
-        cdof = prog.cdof
-
-        ins = [_to_tiles(q, Bp)]
-        in_specs = [_spec((q.shape[1],))]
-        for f in fstars:
-            ins.append(_to_tiles(f, Bp))
-            in_specs.append(_spec((f.shape[1],)))
-        use_mask = cmask is not None
-        if use_mask:
-            ins.append(_to_tiles(cmask, Bp))
-            in_specs.append(_spec((cmask.shape[1],)))
-        use_servo = servos is not None
-        servo_layout = []
-        if use_servo:
-            ins.append(_to_tiles(qdot, Bp))
-            in_specs.append(_spec((qdot.shape[1],)))
-            sv_b = self._servos_batched(servos, B)
-            for h, lvl in enumerate(sv_b):
-                if lvl is None:
-                    continue
-                for j, d in enumerate(lvl):
-                    if d is None:
-                        continue
-                    for fname in sorted(d):
-                        es = SERVO_ELEM_SHAPES[fname]
-                        ins.append(_to_tiles(d[fname], Bp))
-                        in_specs.append(_spec(es))
-                        servo_layout.append((h, j, fname))
-        use_warm = warm is not None
-        if use_warm:
-            for (x, l), (nv, rows) in zip(warm, prog.qp_dims):
-                ins.append(_to_tiles(x, Bp))
-                in_specs.append(_spec((nv,)))
-                ins.append(_to_tiles(l, Bp))
-                in_specs.append(_spec((rows,)))
-
-        nlev = len(prog.task_slots)
-        out_defs = [
-            ("torque_grav", (mdof,)), ("torque_task", (mdof,)),
-            ("torque_contact", (mdof,)), ("torque_cmd", (mdof,)),
-            ("contact_force", (cdof,)), ("qp_gap", ()),
-            ("qp_primal_res", ()), ("health", ()),
-        ]
-        warm_out_defs = [dims for dims in prog.qp_dims]
-
-        def kernel(*refs):
-            nin = len(ins)
-            in_refs = refs[:nin]
-            out_refs = refs[nin:]
-            q_el = in_refs[0][:]
-            fs_el = tuple(in_refs[1 + i][:] for i in range(len(fstars)))
-            base = 1 + len(fstars)
-            cm_el = None
-            if use_mask:
-                cm_el = in_refs[base][:]
-                base += 1
-            qd_el = None
-            sv_el = None
-            if use_servo:
-                qd_el = in_refs[base][:]
-                base += 1
-                sv_dicts = {}
-                for (h, j, fname) in servo_layout:
-                    sv_dicts.setdefault((h, j), {})[fname] = in_refs[base][:]
-                    base += 1
-                sv_el = tuple(
-                    tuple(
-                        sv_dicts.get((h, j))
-                        for j in range(len(prog.task_slots[h]))
-                    ) if any((h, j) in sv_dicts
-                             for j in range(len(prog.task_slots[h])))
-                    else None
-                    for h in range(len(prog.task_slots))
-                )
-            w_el = None
-            if use_warm:
-                w_el = []
-                for i in range(len(prog.qp_dims)):
-                    w_el.append(
-                        (in_refs[base + 2 * i][:], in_refs[base + 2 * i + 1][:])
-                    )
-            out = prog.tick(q_el, fs_el, warm=w_el, iters=iters, cmask=cm_el,
-                            qdot=qd_el, servos=sv_el)
-            k = 0
-            for name, lead in out_defs:
-                out_refs[k][:] = out[name]
-                k += 1
-            for i, (nv, rows) in enumerate(warm_out_defs):
-                out_refs[k][:] = out["warm_out"][i][0]
-                out_refs[k + 1][:] = out["warm_out"][i][1]
-                k += 2
-
-        out_shape = [
-            jax.ShapeDtypeStruct(tuple(lead) + (R, 128), self.dtype)
-            for _, lead in out_defs
-        ] + [
-            s
-            for nv, rows in warm_out_defs
-            for s in (jax.ShapeDtypeStruct((nv, R, 128), self.dtype),
-                      jax.ShapeDtypeStruct((rows, R, 128), self.dtype))
-        ]
-        out_specs = [_spec(lead) for _, lead in out_defs] + [
-            s
-            for nv, rows in warm_out_defs
-            for s in (_spec((nv,)), _spec((rows,)))
-        ]
-
-        outs = pl.pallas_call(
-            kernel,
-            grid=(G,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=self.vmem_limit_mb * 1024 * 1024,
-            ),
-        )(*ins)
-
-        res = {}
-        for (name, lead), o in zip(out_defs, outs):
-            res[name] = _from_tiles(o, B)
-        wouts = outs[len(out_defs):]
-        res["warm_out"] = tuple(
-            (_from_tiles(wouts[2 * i], B), _from_tiles(wouts[2 * i + 1], B))
-            for i in range(len(warm_out_defs))
         )
         return res
 

@@ -107,7 +107,6 @@ def solve_task_level_qp(
 
     rows = []
     ubs = []
-    n_lim = m
     if torque_limit is not None:
         blk = jnp.concatenate([Ntorque_task, NwJw], axis=-1)          # (...,m,nv)
         tl, tb = torque_limit, tau_base
@@ -115,7 +114,6 @@ def solve_task_level_qp(
             import numpy as _np
 
             li = _np.asarray(limit_rows)
-            n_lim = len(li)
             blk = blk[..., li, :]
             tl = tl[..., li]
             tb = tb[..., li]
@@ -143,10 +141,7 @@ def solve_task_level_qp(
     A = jnp.concatenate(rows, axis=-2)
     ub = jnp.concatenate(ubs, axis=-1)
 
-    # torque-limit rows come as a ± pair with finite bounds → let the
-    # Pallas kernel fold the mirrored block instead of storing it
-    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm,
-                   mirror=n_lim if torque_limit is not None else 0)
+    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm)
     return TaskQPResult(
         f_star_delta=sol.x[..., :t],
         contact_qp=sol.x[..., t:],
@@ -201,14 +196,12 @@ def solve_contact_redistribution_qp(
 
     rows = []
     ubs = []
-    n_lim = m
     if torque_limit is not None:
         blk, tl, ti = NwJw, torque_limit, torque_input
         if limit_rows is not None:
             import numpy as _np
 
             li = _np.asarray(limit_rows)
-            n_lim = len(li)
             blk = blk[..., li, :]
             tl = tl[..., li]
             ti = ti[..., li]
@@ -229,6 +222,5 @@ def solve_contact_redistribution_qp(
 
     A = jnp.concatenate(rows, axis=-2)
     ub = jnp.concatenate(ubs, axis=-1)
-    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm,
-                   mirror=n_lim if torque_limit is not None else 0)
+    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm)
     return sol

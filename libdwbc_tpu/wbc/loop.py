@@ -1,8 +1,8 @@
 """Persistent on-device control loop: the single-lane serving shape.
 
 The reference's 1 kHz loop is host code calling the controller every tick
-(tests/test_thread.cpp). On TPU, host↔device round trips per tick would
-dominate (tens of µs to ms, depending on attachment), so the serving shape
+(tests/test_thread.cpp). On an accelerator, a host↔device round trip and
+a launch per tick would dominate the tick itself, so the serving shape
 is a **persistent on-device loop**: K control ticks run inside one
 `lax.scan`, with the robot state advanced on device between ticks by a
 user-supplied transition function (a simulator step, a state-estimate

@@ -1,5 +1,5 @@
 """Lexicographic QP cascade (acceleration-level LQP, the reference's HQP
-class) — TPU-native.
+class) — batched and static-shaped.
 
 Re-derivation of ``HQP``/``HQP_Hierarch`` (/root/reference/src/dwbc_hqp.cpp)
 and the problem builders ``ConfigureLQP[_R[_NC]]`` (src/dwbc.cpp:4304-4760):
@@ -11,7 +11,7 @@ Z_i = Z_{i-1}·null(B_i Z_{i-1}); level i minimizes
 ``‖B_i(y + Z u) + b_i‖² + y'H y-term + ‖v‖²`` subject to its own and all
 previous levels' (slack-frozen) inequalities.
 
-TPU-native choices:
+Design choices:
 * the cascade depth and every constraint-block shape are static → the whole
   cascade is one traced graph, no per-level host round trips;
 * null bases via SVD with **statically known ranks** (the equality stacks

@@ -179,7 +179,7 @@ class MaskedTick:
         self._tick = jax.jit(self._tick_impl, static_argnames=("qp_iters",))
 
     # Static per-type masks over the 6-padded layouts.  Non-6D contacts are
-    # 6D contacts with rows statically masked (the TPU-native form of the
+    # 6D contacts with rows statically masked (the static-shape form of the
     # reference's per-type contact_dof_, contact_constraint.cpp:19-45):
     # POINT keeps the 3 position rows; LINE keeps position + the contact-
     # frame my/mz rows (local-x moment dropped — zero-width line).

@@ -1,6 +1,6 @@
 """Fused control-tick pipeline: (q, q̇, f*) → τ as ONE XLA computation.
 
-This is the TPU-native answer to the reference's per-tick call sequence
+This is the compiled answer to the reference's per-tick call sequence
 (UpdateKinematics → SetContact → CalcContactConstraint → CalcGravCompensation
 → CalcTaskControlTorque → CalcContactRedistribute, SURVEY.md §3.1).  The whole
 tick — kinematics, contact-space factorization, task hierarchy, all QPs — is
@@ -572,8 +572,7 @@ class CompiledTick:
         """Batched tick over a leading scenario axis (jitted).
 
         The whole pipeline broadcasts over leading batch dims natively (no
-        vmap), which lets the QP layer see the full batch and route it to the
-        Pallas lane-batched megakernel on TPU.
+        vmap), so every op sees the full batch.
         """
         return jax.jit(self._tick_impl, static_argnames=("qp_iters",))
 

@@ -8,11 +8,11 @@ chain is lumped into a single 6-DoF virtual body via its locked spatial
 inertia and centroidal momentum matrix, and the whole OSF-HQP cascade runs
 in ``reduced_system_dof = co_dof + 12`` coordinates.
 
-TPU-native differences from the reference:
+Differences from the reference:
 * chain classification is static per contact mode → plain index arrays;
 * the partial CRBA over the nc subtree (which pokes RBDL's internals,
   src/dwbc.cpp:2828-2878) becomes masked dense einsums over per-body
-  jacobians in the base frame — same math, MXU-shaped;
+  jacobians in the base frame — same math, matmul-shaped;
 * no rank-revealing COD: the reduced contact space reuses the closed-form
   kernel factorization from dynamics.contact_space.
 """

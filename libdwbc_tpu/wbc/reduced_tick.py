@@ -1,4 +1,4 @@
-"""ReducedTick: the reduced-dimension pipeline in the TPU serving shape.
+"""ReducedTick: the reduced-dimension pipeline in the serving shape.
 
 The reference's `_R` path (``ReducedDynamicsCalculate`` →
 ``ReducedCalcContactConstraint`` → ``ReducedCalcGravCompensation`` →
@@ -27,15 +27,12 @@ a *partial* full-system contact space (Λ_c, J̄_cᵀ, N_C, A⁻¹N_C — needed
 by non-contact-chain task Λ, src/dwbc.cpp:3104-3110), the nc resultant
 QP (a 4th solve), and the scatter recomposition.
 
-**Measured verdict (PERF.md round 4, benchmarks/reduced_bench_r04.json):
-the reduced tick runs at 0.53–0.62× the FULL tick's throughput on TPU**
-at 33 and 45 DoF — the reference's CPU "Time-Efficient" result does NOT
-transfer to the batched XLA serving shape, because the batched tick is
-dispatch/HBM-glue-bound (PERF.md r02 prestage profile), not FLOP-bound,
-and the reduction shrinks FLOPs while ADDING distinct small ops.  The
-class is kept as the semantic/parity surface for reduced-coordinate
-serving (and as the base for a fused reduced kernel if a future profile
-justifies one); for raw throughput serve the full FusedTick.
+Throughput against the full tick on the GPU is not measured.  The
+reduction shrinks FLOPs while ADDING distinct small ops, so on a batched
+XLA tick that is bound by its many small ops it need not be faster (the
+reference's CPU "Time-Efficient" result does not carry over by itself).
+The class is the semantic/parity surface for reduced-coordinate serving;
+for raw throughput serve the full tick (libdwbc_tpu.backend).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-// dwbc_host: native host-side runtime for the TPU-native WBC framework.
+// dwbc_host: native host-side runtime for the batched WBC framework.
 //
 // The device computes; the host compiles models, moves bytes, and keeps
 // real-time. This library is the C++ counterpart of libdwbc_tpu's host

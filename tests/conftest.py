@@ -1,24 +1,30 @@
 """Test bootstrap: force CPU (8 virtual devices for sharding tests) + x64.
 
-Must run before jax is imported anywhere.
+Must run before jax is imported anywhere.  Tests marked `gpu` need the card:
+chip_smoke.py runs them with DWBC_TEST_PLATFORM=gpu, which leaves JAX on its
+default (GPU) backend at f32; everywhere else they skip (fixture `gpu`).
 """
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_ENABLE_X64", "1")
-flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=8"
+ON_CARD = os.environ.get("DWBC_TEST_PLATFORM") == "gpu"
+if not ON_CARD:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ.setdefault("JAX_ENABLE_X64", "1")
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=8"
 
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_platforms", "cpu")
+if not ON_CARD:
+    jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -62,6 +68,27 @@ def full_q(joints, base=(0, 0, 0.92983, 0, 0, 0), qw=1.0):
     q[6:39] = joints
     q[39] = qw
     return q
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU; run on the card by chip_smoke.py")
+
+
+@pytest.fixture
+def gpu():
+    """The GPU device; skips the test where JAX has none."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: chip_smoke.py runs it on the card")
+    return jax.devices()[0]
+
+
+@pytest.fixture(scope="session")
+def tocabi_npz():
+    """The 33-DoF Tocabi as committed in models/tocabi.npz."""
+    from libdwbc_tpu.model.compile import RobotModel
+
+    return RobotModel.load(os.path.join(REPO, "models", "tocabi.npz"))
 
 
 @pytest.fixture(scope="session")

@@ -1,4 +1,4 @@
-"""elemlin (element-leading math core of the fused Pallas tick) vs the
+"""elemlin (element-leading math core of the fused tick) vs the
 golden-validated batch-leading kernels in ops/smallmat + numpy truth."""
 
 import numpy as np

@@ -71,7 +71,7 @@ def test_compiled_tick_f32(tocabi_model, cfg33):
 def test_fused_xla_f32(tocabi_model, cfg33):
     from libdwbc_tpu.wbc.fused import FusedTick
 
-    tick = FusedTick(tocabi_model, cfg33, dtype=jnp.float32, backend="xla")
+    tick = FusedTick(tocabi_model, cfg33, dtype=jnp.float32)
     qs, qds, fs = _batch(tocabi_model)
     _check(tick._tick_impl(
         jnp.asarray(qs), jnp.asarray(qds),

@@ -76,7 +76,7 @@ def test_comp_gap_eps_infeasible_row():
     ub = np.ones(m, np.float32)
     ub[m - 1] = -1e-6
     sol = solve_qp(jnp.asarray(H), jnp.asarray(g), jnp.asarray(A), None,
-                   jnp.asarray(ub), iters=30, backend="xla")
+                   jnp.asarray(ub), iters=30)
     lam_max = float(np.max(np.asarray(sol.lam)))
     assert lam_max > 1e6, "dual should diverge on the infeasible row"
     assert float(sol.primal_res) == pytest.approx(1e-6, rel=1e-2)
@@ -226,14 +226,14 @@ def test_fused_masked_limit_riding_gap(tocabi_model):
     """The fused kernel's in-kernel IPM (ops/tick_kernel.py::_ipm) uses the
     same normalized complementarity: a masked single-support warm chain
     riding the torque limit must read gap ~0 (XLA backend = the same
-    element-leading program the Pallas kernel runs)."""
+    element-leading program of FusedTick)."""
     from libdwbc_tpu.wbc.fused import FusedTick
 
     cfg = dataclasses.replace(
         standard_tocabi_config(tocabi_model, qp_iters=12),
         torque_limit=np.full(tocabi_model.model_dof, 45.0),
     )
-    tick = FusedTick(tocabi_model, cfg, dtype=jnp.float64, backend="xla",
+    tick = FusedTick(tocabi_model, cfg, dtype=jnp.float64,
                      masked=True)
     q = np.tile(full_q(CASE_Q[1]), (2, 1))
     qd = np.zeros((2, tocabi_model.ndof))

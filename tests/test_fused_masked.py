@@ -21,7 +21,7 @@ def masked_pair(tocabi_model):
 
     cfg = standard_tocabi_config(tocabi_model, qp_iters=25)
     mt = MaskedTick(tocabi_model, cfg, dtype=jnp.float64)
-    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64, backend="xla",
+    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64,
                    masked=True)
     return tocabi_model, mt, ft
 
@@ -84,7 +84,7 @@ def test_masked_fused_matches_static_tick_per_mode(masked_pair):
 
     model, mt, ft = masked_pair
     cfg = standard_tocabi_config(model, qp_iters=25)
-    ft_static = FusedTick(model, cfg, dtype=jnp.float64, backend="xla")
+    ft_static = FusedTick(model, cfg, dtype=jnp.float64)
     qb, qdb, fb, masks = _inputs()
     rf = ft._tick_impl(qb[:1], qdb[:1], tuple(f[:1] for f in fb), masks[:1])
     rs = ft_static._tick_impl(qb[:1], qdb[:1], tuple(f[:1] for f in fb))

@@ -24,7 +24,7 @@ def setup(tocabi_model):
 
     cfg = standard_tocabi_config(tocabi_model, qp_iters=25)
     ct = CompiledTick(tocabi_model, cfg, dtype=jnp.float64)
-    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64, backend="xla")
+    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64)
     return tocabi_model, cfg, ct, ft
 
 

@@ -2,9 +2,8 @@
 XLA pipeline, CPU f64.
 
 The fused tick is ONE element-leading program (FK → jacobians → world-frame
-CRBA → A⁻¹ → contact space → JKT → 3 IPM QPs) designed to run inside a
-Pallas megakernel on TPU; here the IDENTICAL traced function runs as plain
-XLA and must reproduce the CompiledTick pipeline, which is itself golden-
+CRBA → A⁻¹ → contact space → JKT → 3 IPM QPs); here it runs as plain XLA
+and must reproduce the CompiledTick pipeline, which is itself golden-
 validated against /root/reference/tests/cases (test_golden_parity.py).
 
 Tolerance policy (CLAUDE.md): pre-QP linear algebra ~1e-12; τ_task tight
@@ -27,7 +26,7 @@ def setup(tocabi_model):
 
     cfg = standard_tocabi_config(tocabi_model, qp_iters=25)
     tick = CompiledTick(tocabi_model, cfg, dtype=jnp.float64)
-    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64, backend="xla")
+    ft = FusedTick(tocabi_model, cfg, dtype=jnp.float64)
     prog = TickProgram(tocabi_model, cfg, dtype=jnp.float64)
     return tocabi_model, cfg, tick, ft, prog
 
@@ -143,10 +142,33 @@ def test_single_support_config(setup):
     model, *_ = setup
     cfg = standard_tocabi_config(model, both_feet=False, qp_iters=25)
     tick = CompiledTick(model, cfg, dtype=jnp.float64)
-    ft = FusedTick(model, cfg, dtype=jnp.float64, backend="xla")
+    ft = FusedTick(model, cfg, dtype=jnp.float64)
     q = full_q(CASE_Q[1])
     f1, f2 = CASE_FSTAR[1]
     r_ref = tick(q, np.zeros(39), (f1, f2))
     r = ft(q, np.zeros(39), (f1, f2))
     assert np.abs(np.asarray(r.torque_cmd) - np.asarray(r_ref.torque_cmd)).max() < 1e-6
     assert r.contact_force.shape[-1] == 6
+
+
+def test_fused_f32_vs_compiled_f64_full_width(tocabi_npz):
+    """The committed 33-DoF Tocabi, double support, 2-level HQP: FusedTick
+    at f32 against CompiledTick at f64 on 4 perturbed standing scenarios,
+    within the f32 bars of the card's truth check (τ_grav 1e-2 Nm, τ_cmd
+    5e-2 Nm — the QP optimum is a face)."""
+    import __graft_entry__ as ge
+    from libdwbc_tpu.wbc.fused import FusedTick
+    from libdwbc_tpu.wbc.pipeline import CompiledTick, standard_tocabi_config
+
+    cfg = standard_tocabi_config(tocabi_npz, qp_iters=12)
+    q, qd, fs = ge._batch_inputs(tocabi_npz, 4, seed=2)
+    r32 = FusedTick(tocabi_npz, cfg, dtype=jnp.float32)._tick(q, qd, fs)
+    r64 = CompiledTick(tocabi_npz, cfg, dtype=jnp.float64)._tick(
+        q.astype(np.float64), qd.astype(np.float64),
+        tuple(f.astype(np.float64) for f in fs))
+    assert r32.torque_cmd.dtype == jnp.float32
+    for k, tol in (("torque_grav", 1e-2), ("torque_cmd", 5e-2)):
+        d = np.abs(np.asarray(getattr(r32, k), np.float64)
+                   - np.asarray(getattr(r64, k))).max()
+        assert d < tol, (k, d)
+    assert not np.asarray(r32.qp_error).any()

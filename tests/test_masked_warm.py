@@ -157,7 +157,7 @@ def test_masked_warm_chain_dual_stays_bounded(tocabi_model):
 
     model = tocabi_model
     cfg = standard_tocabi_config(model, qp_iters=12)
-    ft = FusedTick(model, cfg, dtype=jnp.float32, backend="xla", masked=True)
+    ft = FusedTick(model, cfg, dtype=jnp.float32, masked=True)
     B = 6
     rng = np.random.default_rng(0)
     q = full_q(CASE_Q[1]).astype(np.float32)

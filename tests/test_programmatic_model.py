@@ -1,4 +1,4 @@
-"""Programmatic (non-URDF) model construction — the TPU-native analog of
+"""Programmatic (non-URDF) model construction — the analog of
 ``RobotData::InitModelWithLinkJoint`` (/root/reference/src/dwbc.cpp:2425-2471).
 
 Two protocols:

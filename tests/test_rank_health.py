@@ -3,7 +3,7 @@
 The reference aborts with "Contact Space Factorization Error" when the COD
 rank of the contact Gram is not the expected one
 (/root/reference/src/wbd.cpp:126-136, src/dwbc.cpp:3121-3131).  The
-TPU-native equivalent is a numeric, batched `rank_health` indicator
+batched equivalent is a numeric, batched `rank_health` indicator
 returned from `contact_space`/`masked_contact_space` and threaded into
 TickResult — tiny on a degenerate contact set, O(normal) otherwise.
 """
